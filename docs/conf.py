@@ -23,5 +23,5 @@ exclude_patterns = ["_build"]
 html_theme = "furo"
 
 autodoc_mock_imports = [
-    "jax", "jaxlib", "numpy", "scipy", "yaml", "pandas",
+    "jax", "jaxlib", "numpy", "scipy",
 ]

@@ -1,4 +1,4 @@
-"""itrails-tpu: a TPU-native coalescent-HMM engine.
+"""itrails-tpu: a JAX coalescent-HMM engine for GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 ``trails-phylogeny/itrails`` (reference mounted read-only at /root/reference):
@@ -18,12 +18,13 @@ Design (not a port):
 * All parameter-dependent math — batched matrix exponentials, the masked
   interval DP, Van Loan block integrals, the t->inf solves, and the JC69
   emission integrals — is a single jitted function ``params -> (a, b, pi)``
-  (``core.model``) built from dense padded arrays, MXU-friendly matmuls and
+  (``core.model``) built from dense padded arrays, batched matmuls and
   ``lax.scan``.
 * The genome-scale HMM decoders (forward/backward/posterior/Viterbi) are
   log-space scans batched over alignment windows with ``vmap`` and sharded
   data-parallel over a ``jax.sharding.Mesh`` (``hmm``), with ``psum`` merging
-  per-shard log-likelihoods.
+  per-shard log-likelihoods; on a CUDA device the forward value and its
+  gradient run as Pallas-Triton kernels (``hmm.triton_hmm``).
 """
 
 __version__ = "0.1.0"

@@ -442,10 +442,9 @@ def resolve_optim_method(setup, grad_flag: bool, no_grad_flag: bool):
     """Resolve ``(use_grad, scipy_method)`` for an optimize CLI run.
 
     Default (no flags, no explicit ``settings.method``): the
-    exact-gradient L-BFGS-B path — GRADEVAL.json shows it winning
-    wall-clock-to-convergence with equal-or-better optima, and the
-    reference has no exact-gradient mode at all (its L-BFGS-B is
-    finite-difference, reference optimizer.py:620-637).  Explicitly
+    exact-gradient L-BFGS-B path; the reference has no exact-gradient
+    mode at all (its L-BFGS-B is finite-difference, reference
+    optimizer.py:620-637).  Explicitly
     setting ``settings.method: Nelder-Mead`` (or passing ``--no-grad``)
     restores the reference's default algorithm for trajectory-level
     parity; ``--no-grad`` with ``settings.method: L-BFGS-B`` gives

@@ -350,15 +350,9 @@ def write_viterbi_csv(path, results, coords):
 
 def write_posterior_csv(path, results, coords):
     """Per-position per-state probabilities (reference
-    workflow_posterior.py:697-716).  Bulk writer: pandas' C CSV emitter
-    (same shortest-roundtrip float text as the reference's csv.writer
-    after the f64 widening both perform), chunked so a 1e8-row posterior
-    streams through bounded memory; plain-Python fallback if pandas is
-    unavailable."""
-    try:
-        import pandas as pd
-    except ImportError:
-        pd = None
+    workflow_posterior.py:697-716): the reference's csv.writer text
+    (shortest round-trip float repr after the f64 widening), written in
+    chunks so a 1e8-row posterior streams through bounded memory."""
     chunk_rows = 1 << 18
     with open(path, "w", newline="") as f:
         w = csv.writer(f)
@@ -372,15 +366,8 @@ def write_posterior_csv(path, results, coords):
             for off in range(0, len(arr), chunk_rows):
                 chunk = arr[off:off + chunk_rows]
                 pc = pos[off:off + chunk_rows]
-                if pd is not None:
-                    df = pd.DataFrame(chunk)
-                    df.insert(0, "p", pc)
-                    df.insert(0, "b", np.full(len(chunk), block_idx))
-                    df.to_csv(f, header=False, index=False,
-                              lineterminator="\n")
-                else:
-                    f.write("\n".join(
-                        f"{block_idx},{p}," + ",".join(map(repr, row))
-                        for p, row in zip(pc.tolist(), chunk.tolist())
-                    ) + "\n")
+                f.write("\n".join(
+                    f"{block_idx},{p}," + ",".join(map(repr, row))
+                    for p, row in zip(pc.tolist(), chunk.tolist())
+                ) + "\n")
     print(f"Posterior decoding complete. Results saved to {path}.")

@@ -17,7 +17,8 @@ from itrails_tpu.cli.common import (
     resolve_optim_method,
     standard_parser,
 )
-from itrails_tpu.config import load_config, seed_best_model, write_starting_params
+from itrails_tpu.config import (load_config, load_yaml, seed_best_model,
+                                write_starting_params)
 from itrails_tpu.data.maf import maf_tokens
 from itrails_tpu.optim.optimizer import optimizer
 
@@ -72,14 +73,12 @@ def main(argv=None):
     resume = args.resume and (os.path.exists(best_model_yaml)
                               or os.path.exists(state_yaml))
     if resume:
-        import yaml as _yaml
-
         # Prefer the mid-run search-state checkpoint (the optimizer's last
         # iterate, written atomically every scipy iteration) over the
         # best-model YAML (reference README.md:36-40), which only records
         # the best-so-far point.
         if os.path.exists(state_yaml):
-            st = _yaml.safe_load(open(state_yaml))
+            st = load_yaml(state_yaml)
             for i, name in enumerate(setup["optim_variables"]):
                 if name in st.get("variables", []):
                     setup["optim_list"][i] = float(
@@ -88,7 +87,7 @@ def main(argv=None):
             print(f"Resuming from {state_yaml} "
                   f"(iterate after {st.get('n_eval', '?')} evaluations).")
         else:
-            prev = _yaml.safe_load(open(best_model_yaml))
+            prev = load_yaml(best_model_yaml)
             mu = setup["mu"]
             prev_opt = prev.get("optimized_parameters") or {}
             for i, name in enumerate(setup["optim_variables"]):

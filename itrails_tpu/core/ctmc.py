@@ -25,7 +25,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from itrails_tpu.core.expm import expm_batch
-from itrails_tpu.core.linalg import solve
 from itrails_tpu.core.schedule import Plan
 from itrails_tpu.core.statespace import combine_partitions_map, state_space
 
@@ -399,7 +398,7 @@ def run_abc_stage(plan: Plan, pi_abc, q_abc, cut_ABC, dtype=jnp.float64):
     keep = np.where(plan.keep_mask)[0]
     q_no = q_abc[jnp.ix_(keep, keep)]
     n_no = keep.size
-    n_mat = solve(q_no, -jnp.eye(n_no, dtype=dtype))
+    n_mat = jnp.linalg.solve(q_no, -jnp.eye(n_no, dtype=dtype))
     no_masks = jnp.asarray(plan.noabs_masks, dtype)
     p_no = p_abc[:, keep]
 

@@ -94,8 +94,8 @@ def _single_integrand(alpha, beta, gamma, t, mu, k, xp=jnp):
     """Reference JC69_analytical_integral (get_emission_prob_mat.py:47-92),
     restructured to remove the k ~= mu numerical cliff the reference
     inherits: its ``gamma/(mu - k)`` and ``gamma/(k - mu)`` terms cancel
-    catastrophically (f64 error ~eps/|mu-k|, tools/
-    exp_integrand_singular.py); here the pair is the exact divided
+    catastrophically (f64 error ~eps/|mu-k|, measured against an mpmath
+    oracle); here the pair is the exact divided
     difference ``gamma * exp(-k t) * t * phi((mu - k) t)``, finite and
     fully accurate through k == mu.  Every ``1 - exp(-x)`` is ``-expm1``.
     ``xp`` selects the array module so tests can evaluate the identical
@@ -133,7 +133,7 @@ def coal_tensor_single(t, mu, k, dtype=jnp.float64):
 
 
 # Half-width of the excluded band around the _double_integrand's removable
-# singularities mu in {1, 2, 3}.  Measured (tools/exp_integrand_singular.py):
+# singularities mu in {1, 2, 3}.  Measured against an mpmath oracle:
 # un-guarded f64 cancellation at mu = 2 reaches 2.2e-5 at delta = 1e-6,
 # 5.7e-3 at 1e-7, nan at the exact point; with the 1e-5 nudge the error vs
 # the TRUE value stays <= ~2e-11 everywhere (the integrand is nearly flat
@@ -151,7 +151,7 @@ def _double_integrand(alpha, beta, gamma, delta, epsilon, t, mu, xp=jnp):
     removable singularities at mu in {1, 2, 3} — reachable only at
     pathological bound corners, where the reference returns inf/nan and
     f64 cancellation nearby reaches 5.7e-3 relative at |mu - 2| = 1e-7
-    (tools/exp_integrand_singular.py).  mu is nudged off the singular set
+    (mpmath oracle).  mu is nudged off the singular set
     by at most _MU_GUARD; the measured error vs the true value with the
     nudge is <= ~2e-11 (the integrand is nearly flat across the removable
     point).  ``xp`` selects the array module (mpmath-shim oracle in

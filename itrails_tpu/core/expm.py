@@ -1,4 +1,4 @@
-"""Batched matrix exponential for JAX (TPU-friendly).
+"""Batched matrix exponential for JAX.
 
 Single code path: degree-13 Pade approximant with scaling-and-squaring
 (Higham 2008, Alg. 10.20 — the same family the reference's numba kernel uses,
@@ -10,7 +10,7 @@ reference expm.py:9-167, but restructured for XLA):
 * always Pade-13 (for small norms this is strictly more accurate than the
   reference's lower-degree branches, so parity tolerances hold);
 * operates on a batch ``(..., n, n)`` so every CTMC propagator of a model
-  build is one fused call on the MXU.
+  build is one fused batched call.
 """
 
 from __future__ import annotations
@@ -18,8 +18,6 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 from jax import lax
-
-from itrails_tpu.core.linalg import solve
 
 __all__ = ["expm", "expm_batch"]
 
@@ -97,7 +95,7 @@ def _expm_impl(a: jnp.ndarray) -> jnp.ndarray:
         + b[2] * a2,
         b[0],
     )
-    x = solve(v - u, v + u)
+    x = jnp.linalg.solve(v - u, v + u)
 
     def cond(state):
         k, _ = state
@@ -156,9 +154,9 @@ def _expm_frechet(a, e):
     v = add_diag(a6 @ z1 + b[6] * a6 + b[4] * a4 + b[2] * a2, b[0])
     lv = m6 @ z1 + a6 @ lz1 + b[6] * m6 + b[4] * m4 + b[2] * m2
     den = v - u
-    x = solve(den, v + u)
+    x = jnp.linalg.solve(den, v + u)
     # differentiate (V-U) X = (V+U):  (V-U) L = (Lu+Lv) + (Lu-Lv) X
-    ell = solve(den, lu + lv + (lu - lv) @ x)
+    ell = jnp.linalg.solve(den, lu + lv + (lu - lv) @ x)
 
     def cond(state):
         k, _, _ = state

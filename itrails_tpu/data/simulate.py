@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from itrails_tpu.data.tokens import ALPHABET
+from itrails_tpu.data.tokens import token_strings
 
 __all__ = ["simulate_tokens", "simulate_token_batch", "write_maf",
            "simulate_maf"]
@@ -99,20 +99,15 @@ def simulate_token_batch(model, n_windows: int, win_len: int, seed: int = 0,
     return tokens.reshape(n_windows, win_len)
 
 
-def _token_to_column(token: int) -> str:
-    a, rem = divmod(int(token), 64)
-    b, rem = divmod(rem, 16)
-    c, d = divmod(rem, 4)
-    return ALPHABET[a] + ALPHABET[b] + ALPHABET[c] + ALPHABET[d]
-
-
 def write_maf(path, token_blocks, species, chrom="chr1", src_size=500_000_000):
-    """Write token blocks as a minimal MAF alignment."""
+    """Write token blocks (any of the 625 tokens, N-ambiguity included) as a
+    minimal MAF alignment."""
+    strings = token_strings()
     with open(path, "w") as f:
         f.write("##maf version=1\n\n")
         start = 0
         for block in token_blocks:
-            cols = [_token_to_column(t) for t in block]
+            cols = [strings[t] for t in np.asarray(block).tolist()]
             f.write("a score=0.0\n")
             for s, sp in enumerate(species):
                 seq = "".join(c[s] for c in cols)

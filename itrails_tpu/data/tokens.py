@@ -21,7 +21,7 @@ ALPHABET = "ACTG"
 PAD_TOKEN = -1
 
 __all__ = ["ALPHABET", "PAD_TOKEN", "token_strings", "token_index",
-           "aggregation_matrix", "token_bit_codes", "tokenize_column"]
+           "aggregation_matrix", "tokenize_column"]
 
 
 @functools.lru_cache(maxsize=1)
@@ -60,22 +60,6 @@ def aggregation_matrix() -> np.ndarray:
                     for d in choices[3]:
                         agg[t, ((a * 4 + b) * 4 + c) * 4 + d] = 1.0
     return agg
-
-
-@functools.lru_cache(maxsize=1)
-def token_bit_codes() -> np.ndarray:
-    """(625,) int32: positional symbol code of each token, 3 bits per
-    position (A,C,T,G -> 0..3, N -> 4; char k of the string in bits
-    3k..3k+2).  Lets a TPU kernel recover the per-position symbols of a
-    token with shifts/ands — no division, no table gather — and build the
-    ambiguity-resolution multi-hot over the 256 unambiguous columns
-    in-register (hmm.pallas_fwd)."""
-    ext = {c: i for i, c in enumerate("ACTGN")}
-    return np.array(
-        [ext[s[0]] | (ext[s[1]] << 3) | (ext[s[2]] << 6) | (ext[s[3]] << 9)
-         for s in token_strings()],
-        dtype=np.int32,
-    )
 
 
 def tokenize_column(column: str) -> int:

@@ -4,8 +4,8 @@ The reference implements these as numba loops over one sequence at a time
 (optimizer.py:145-354) and parallelises across alignment blocks with joblib
 process pools.  Here each decoder is a ``lax.scan`` whose per-step state is a
 (batch, M) matrix, so a whole batch of windows advances with one (W, M) @
-(M, M) matmul per alignment column on the MXU; batching over windows is the
-data-parallel axis that shards across chips (see hmm.sharding).
+(M, M) matmul per alignment column; batching over windows is the
+data-parallel axis that shards across devices (see hmm.sharding).
 
 Numerics mirror the reference exactly: log-space alpha/beta with a per-step
 max shift (optimizer.py:165-188, 191-213), posterior = row-softmax(alpha +
@@ -18,11 +18,14 @@ state through unchanged so every quantity equals the unpadded computation.
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 from jax import lax
 
 from itrails_tpu.data.tokens import PAD_TOKEN
+from itrails_tpu.hmm import triton_hmm
 
 __all__ = [
     "emission_table",
@@ -31,19 +34,33 @@ __all__ = [
     "forward_loglik",
     "forward_loglik_fast",
     "backward",
+    "highest_precision",
     "posterior",
-    "posterior_fast",
     "viterbi",
-    "viterbi_fast",
 ]
 
 
+def highest_precision(fn):
+    """Trace ``fn`` with every matrix product at full f32 precision: on the
+    GPU an unpinned f32 product may run in TF32, which keeps ~3 decimal
+    digits."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with jax.default_matmul_precision("highest"):
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
+@highest_precision
 def emission_table(b, agg):
     """(M, 625) emission table over the full (ambiguity-resolved) alphabet:
     ``b @ agg.T`` where agg is data.tokens.aggregation_matrix()."""
     return b @ jnp.asarray(agg, b.dtype).T
 
 
+@highest_precision
 def emission_table_new_method(b, pad_to: int | None = None):
     """(M, 125) emission table over the 3-species ("new method") alphabet:
     the (M, 256) four-species emission matrix marginalized over the
@@ -52,9 +69,9 @@ def emission_table_new_method(b, pad_to: int | None = None):
     a working decode path here via the CLIs' ``--obs-mode new-method``).
     Every decoder in this module accepts it directly with
     maf.maf_tokens_new_method tokens.  ``pad_to=625`` zero-pads the
-    columns to the standard table width so the fused TPU kernels (fixed
-    KP=640 one-hot) and the XLA scans share one shape — tokens only ever
-    index 0..124, and PAD_TOKEN handling never reads the table."""
+    columns to the standard table width so every decoder, the kernels of
+    hmm.triton_hmm included, sees one shape — tokens only ever index
+    0..124, and PAD_TOKEN handling never reads the table."""
     from itrails_tpu.data.tokens import aggregation_matrix_3
 
     m = b.shape[0]
@@ -75,6 +92,7 @@ def _gather_emis(bfull, tokens):
     return jnp.where((tokens == PAD_TOKEN)[:, None], jnp.ones_like(e), e)
 
 
+@highest_precision
 def forward(a, bfull, pi, tokens):
     """Log-space forward pass over a (W, T) token batch.
 
@@ -103,73 +121,25 @@ def forward_loglik(a, bfull, pi, tokens):
     return jnp.sum(ll)
 
 
-def _fast_precision():
-    """Precision mix for the fused-kernel fast dispatch, resolved at trace
-    time.  Default: the throughput-tuned mix (16-significand-bit emission
-    table + 3-pass transition matmul, ~2e-6 relative agreement with the
-    f32 scan).  Setting ``ITRAILS_TPU_EXACT_DECODE=1`` switches every fast
-    path (including the sharded/optimizer objective, which only reaches
-    the kernels through this dispatch) to the bit-exact-vs-f32-scan
-    configuration.
-
-    The variable is read at TRACE time: set it before the first call of
-    each jitted wrapper in the process.  Changing it afterwards is
-    silently ignored for already-compiled shapes (jit caches the traced
-    choice); there is deliberately no runtime re-check, which would leak
-    a host read into every dispatch."""
-    import os
-
-    if os.environ.get("ITRAILS_TPU_EXACT_DECODE", "0") not in ("", "0"):
-        return {"table_parts": 3, "trans": "highest"}
-    return {"table_parts": 2, "trans": "split3"}
-
-
 def forward_loglik_fast(a, bfull, pi, tokens):
-    """Total log-likelihood, dispatched at trace time to the fused Pallas
-    TPU kernel (hmm.pallas_fwd) when on a TPU backend, else the XLA scan.
-    The TPU path runs the throughput-tuned precision mix (16-significand-
-    bit emission table + 3-pass transition matmul): agreement with the f32
-    scan is ~2e-6 relative on the total — the same order as the f32 scan's
-    own deviation from f64 — and ~1.4x the bit-exact kernel's throughput
-    at M=133 (tools/exp_fwd_precision.py).  For the bit-exact-vs-f32-scan
-    configuration set ``ITRAILS_TPU_EXACT_DECODE=1`` (or call
-    pallas_fwd.forward_loglik_fused directly; its defaults:
-    table_parts=3, trans="highest")."""
-    from itrails_tpu.hmm import pallas_fwd
-
-    if pallas_fwd.supported():
-        return pallas_fwd.forward_loglik_fused(
-            a, bfull, pi, tokens, **_fast_precision()
-        )
-    return forward_loglik(a, bfull, pi, tokens)
+    """Total log-likelihood of a (W, T) token batch: the one dispatcher for
+    the forward value.  A float32 request compiled for a CUDA device runs
+    the Pallas-Triton kernel (hmm.triton_hmm); every other request runs the
+    XLA scan.  The choice follows the platform the computation is compiled
+    for (``lax.platform_dependent``), so a CPU-placed decode in a GPU
+    process still gets the scan.  Float64 requests run the scan in float64:
+    the Triton route accumulates its products in float32.  Per-window values
+    are summed in float64 when x64 is on."""
+    if bfull.dtype != jnp.float32:
+        return triton_hmm.total(forward(a, bfull, pi, tokens)[1])
+    return lax.platform_dependent(
+        a, bfull, pi, tokens,
+        cuda=triton_hmm.forward_loglik,
+        default=lambda *x: triton_hmm.total(forward(*x)[1]),
+    )
 
 
-def posterior_fast(a, bfull, pi, tokens):
-    """Posterior probabilities, dispatched at trace time to the fused
-    Pallas forward+backward kernels (hmm.pallas_fwd.posterior_fused) on
-    TPU, else the XLA scans.  ``ITRAILS_TPU_EXACT_DECODE=1`` selects the
-    bit-exact precision configuration (see forward_loglik_fast)."""
-    from itrails_tpu.hmm import pallas_fwd
-
-    if pallas_fwd.supported():
-        return pallas_fwd.posterior_fused(
-            a, bfull, pi, tokens, **_fast_precision()
-        )
-    return posterior(a, bfull, pi, tokens)
-
-
-def viterbi_fast(a, bfull, pi, tokens):
-    """Viterbi path, dispatched at trace time to the fused Pallas kernel
-    (hmm.pallas_viterbi) on TPU, else the XLA scan.  The kernel also
-    rescales omega per step, preserving f32 resolution on state
-    differences for arbitrarily long windows."""
-    from itrails_tpu.hmm import pallas_viterbi
-
-    if pallas_viterbi.supported():
-        return pallas_viterbi.viterbi_fused(a, bfull, pi, tokens)
-    return viterbi(a, bfull, pi, tokens)
-
-
+@highest_precision
 def _forward_all(a, bfull, pi, tokens):
     """Forward pass keeping every step's alpha: (T, W, M)."""
     alpha0 = jnp.log(pi[None, :] * _gather_emis(bfull, tokens[:, 0]))
@@ -185,6 +155,7 @@ def _forward_all(a, bfull, pi, tokens):
     return jnp.concatenate([alpha0[None], rest], axis=0)
 
 
+@highest_precision
 def backward(a, bfull, tokens):
     """Log-space backward pass; returns (T, W, M) beta values."""
     t_len = tokens.shape[1]
@@ -223,15 +194,13 @@ def viterbi(a, bfull, pi, tokens):
     Padded steps repeat the last real state; mask with
     ``tokens != PAD_TOKEN`` when consuming.
 
-    The recursion mirrors the fused kernel (hmm.pallas_viterbi) operation
-    for operation — log-probabilities clamped at -1e4 (never -inf), omega
+    Log-probabilities are clamped at -1e4 (never -inf), omega is
     rescaled by its per-window max every step (f32 stability for
-    unbounded T), and the argmax over PRE-emission scores (the
+    unbounded T), and the argmax runs over PRE-emission scores (the
     source-independent emission term cannot change the true argmax, and
-    max_i fl(s_i) + e == max_i fl(s_i + e) by monotonicity) — so the
-    scan and the kernel take bit-identical decisions even at f32
-    rounding-tie margins.  In f64 on real models this is the reference
-    max-plus recursion (optimizer.py:305-333) exactly: rescaling shifts
+    max_i fl(s_i) + e == max_i fl(s_i + e) by monotonicity).  In f64 on
+    real models this is the reference max-plus recursion
+    (optimizer.py:305-333) exactly: rescaling shifts
     all scores per window and never changes an argmax at real-model
     margins."""
     neg = jnp.asarray(-1e4, bfull.dtype)

@@ -27,13 +27,19 @@ from jax import lax
 from jax.sharding import PartitionSpec as P
 
 from itrails_tpu.data.tokens import PAD_TOKEN
+from itrails_tpu.hmm import triton_hmm
+from itrails_tpu.hmm.decoders import highest_precision
+from itrails_tpu.hmm.triton_hmm import ACC_DTYPE
 
-__all__ = ["forward_loglik_remat", "decode_value_and_grad_fn"]
+__all__ = ["forward_loglik_remat", "loglik_and_grads",
+           "decode_value_and_grad_fn"]
 
 
+@highest_precision
 def forward_loglik_remat(a, bfull, pi, tokens, chunk: int = 1024):
     """Total log-likelihood of a (W, T) token batch; reverse-differentiable
-    with chunked rematerialization.  Matches decoders.forward_loglik."""
+    with chunked rematerialization.  Matches decoders.forward_loglik (the
+    total is float64 when x64 is on, whatever the input dtype)."""
     w, t_len = tokens.shape
     bt = bfull.T  # (625, M)
 
@@ -44,7 +50,9 @@ def forward_loglik_remat(a, bfull, pi, tokens, chunk: int = 1024):
     al = pi[None, :] * e0
     s0 = jnp.sum(al, axis=1)
     al = al / s0[:, None]
-    acc = jnp.log(s0)
+    # per-window log-norms accumulate in f64 (when x64 is on): in f32 the
+    # rounding of a long window's ~1e4-nat sum reaches ~5e-5 relative
+    acc = jnp.log(s0).astype(ACC_DTYPE)
 
     rest = tokens[:, 1:]
     tc = min(chunk, max(rest.shape[1], 1))
@@ -64,7 +72,8 @@ def forward_loglik_remat(a, bfull, pi, tokens, chunk: int = 1024):
         s = jnp.sum(nx, axis=1, keepdims=True)
         snz = jnp.where(pad, 1.0, s)
         al = jnp.where(pad, al, nx / snz)
-        acc = acc + jnp.where(pad[:, 0], 0.0, jnp.log(snz[:, 0]))
+        acc = acc + jnp.where(pad[:, 0], 0.0,
+                              jnp.log(snz[:, 0])).astype(ACC_DTYPE)
         return (al, acc), None
 
     @jax.checkpoint
@@ -76,22 +85,35 @@ def forward_loglik_remat(a, bfull, pi, tokens, chunk: int = 1024):
     return jnp.sum(acc)
 
 
-def decode_value_and_grad_fn(mesh=None, chunk: int = 1024):
-    """Jitted ``(a, bfull, pi, tokens) -> (ll, (da, dbfull, dpi))`` with the
-    window axis sharded over ``mesh`` (cotangents psum over devices).
-    On TPU the fused Baum-Welch gradient kernels (hmm.pallas_grad) replace
-    reverse-mode autodiff of the scan — same contract, kernel speed."""
-    vg_ad = jax.value_and_grad(
-        functools.partial(forward_loglik_remat, chunk=chunk),
-        argnums=(0, 1, 2),
+def loglik_and_grads(a, bfull, pi, tokens, chunk: int = 1024):
+    """``(ll, (da, dbfull, dpi))`` of a (W, T) token batch: the one
+    dispatcher for the decode gradient.  A float32 request compiled for a
+    CUDA device, at a width the kernel serves (triton_hmm.serves_gradient),
+    runs the Pallas-Triton Baum-Welch kernels
+    (hmm.triton_hmm.loglik_and_grads); every other request runs reverse-mode
+    autodiff of :func:`forward_loglik_remat` (float64 requests stay in
+    float64).  The platform choice follows the platform the computation is
+    compiled for (``lax.platform_dependent``)."""
+
+    def autodiff(a, bfull, pi, tokens):
+        return jax.value_and_grad(
+            functools.partial(forward_loglik_remat, chunk=chunk),
+            argnums=(0, 1, 2),
+        )(a, bfull, pi, tokens)
+
+    if bfull.dtype != jnp.float32 or not triton_hmm.serves_gradient(
+            a.shape[0]):
+        return autodiff(a, bfull, pi, tokens)
+    return lax.platform_dependent(
+        a, bfull, pi, tokens,
+        cuda=triton_hmm.loglik_and_grads, default=autodiff,
     )
 
-    def vg(a, bfull, pi, tokens):
-        from itrails_tpu.hmm import pallas_grad
 
-        if pallas_grad.supported():
-            return pallas_grad.loglik_and_grads_fused(a, bfull, pi, tokens)
-        return vg_ad(a, bfull, pi, tokens)
+def decode_value_and_grad_fn(mesh=None, chunk: int = 1024):
+    """Jitted ``(a, bfull, pi, tokens) -> (ll, (da, dbfull, dpi))`` with the
+    window axis sharded over ``mesh`` (cotangents psum over devices)."""
+    vg = functools.partial(loglik_and_grads, chunk=chunk)
 
     if mesh is None:
         return jax.jit(vg)

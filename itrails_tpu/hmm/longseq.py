@@ -3,7 +3,7 @@
 The HMM forward recurrence is sequential in the alignment position, so a
 single long block cannot use the window-batch data parallelism of
 ``hmm.decoders`` (one window => one (1, M) matvec per column, latency-bound
-at ~10us/column).  The associative reformulation: the per-column update is
+per column).  The associative reformulation: the per-column update is
 ``alpha' = alpha @ (A diag(e_t))``, so any chunk of columns collapses into a
 single M x M *transfer operator* — the ordered product of its per-column
 operators — and chunk operators combine associatively.  This file computes
@@ -18,7 +18,8 @@ This is the "ring/blocked-parallel" analogue for HMMs named in SURVEY.md
 section 5: per-column state is tiny but T is huge, so we trade O(M) extra
 flops per column for T/chunk-fold parallelism.  Results match the
 sequential forward to ~1e-5 relative (different floating-point summation
-order).
+order).  The ``chunk`` defaults below are not yet measured on the H100
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -30,11 +31,13 @@ import jax.numpy as jnp
 from jax import lax
 
 from itrails_tpu.data.tokens import PAD_TOKEN
+from itrails_tpu.hmm.decoders import highest_precision
 
 __all__ = ["forward_loglik_long", "forward_loglik_long_remat",
            "posterior_long", "chunk_operators", "viterbi_segmented"]
 
 
+@highest_precision
 def chunk_operators(a, bfull, tokens, chunk: int):
     """Per-chunk transfer operators for a 1-D token array whose length is a
     multiple of ``chunk`` (pad with PAD_TOKEN; pad columns are identity).
@@ -74,6 +77,7 @@ def _combine(left, right):
     return g / z, zl + zr + jnp.log(z[..., 0, 0])
 
 
+@highest_precision
 def posterior_long(a, bfull, pi, tokens, chunk: int = 256):
     """Exact posterior state probabilities for one long block, (T, M),
     sequence-parallel (matches decoders.posterior to fp tolerance).
@@ -176,6 +180,7 @@ def posterior_long(a, bfull, pi, tokens, chunk: int = 256):
     return post / jnp.sum(post, axis=1, keepdims=True)
 
 
+@highest_precision
 def forward_loglik_long(a, bfull, pi, tokens, chunk: int = 256):
     """Log-likelihood of one long token sequence, sequence-parallel.
 
@@ -203,6 +208,7 @@ def forward_loglik_long(a, bfull, pi, tokens, chunk: int = 256):
     return jnp.log(total) + z
 
 
+@highest_precision
 def forward_loglik_long_remat(a, bfull, pi, tokens, chunk: int = 512,
                               seg_chunks: int = 64, inner: int = 32):
     """Reverse-differentiable sequence-parallel log-likelihood of one long

@@ -4,8 +4,8 @@
 module shards those chunks over a ``jax.sharding.Mesh`` so a single block
 spans every chip of a slice.  The cross-chip pattern is the classic
 sequence-parallel prefix ladder: each device folds its local chunk transfer
-operators into one per-shard (M, M) operator, one ``all_gather`` over ICI
-moves the n_dev tiny operators everywhere, and every device closes its own
+operators into one per-shard (M, M) operator, one ``all_gather`` moves the
+n_dev tiny operators everywhere, and every device closes its own
 exclusive prefix/suffix locally (n_dev is static, M <= ~200, so the
 cross-chip step is O(n_dev * M^2) FLOPs and one collective per direction).
 
@@ -26,6 +26,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from itrails_tpu.data.tokens import PAD_TOKEN
 from itrails_tpu.hmm import longseq
+from itrails_tpu.hmm.decoders import highest_precision
 from itrails_tpu.hmm.longseq import _combine, chunk_operators
 
 __all__ = ["sharded_forward_loglik_long", "sharded_forward_loglik_long_fn",
@@ -71,6 +72,7 @@ def sharded_forward_loglik_long_fn(mesh: Mesh, chunk: int = 256):
         in_specs=(P(), P(), P(), P(), P("data", None)), out_specs=P(),
         check_vma=False,
     )
+    @highest_precision
     def f(a, bfull, pi, first, tok):
         # local chunk operators, then an ordered local fold
         # f64 log-normalizer leg, as in longseq.forward_loglik_long
@@ -115,6 +117,7 @@ def _alpha_beta_sharded(mesh: Mesh, n_dev: int, m: int):
         out_specs=(P("data", None, None), P("data", None, None)),
         check_vma=False,
     )
+    @highest_precision
     def f(a, bfull, pi, first, tok):
         c_loc = tok.shape[0]
         eye = jnp.eye(m, dtype=a.dtype)

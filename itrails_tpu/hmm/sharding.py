@@ -2,12 +2,11 @@
 
 Alignment windows are the data-parallel axis: a 1-D ``jax.sharding.Mesh``
 over all local (or distributed) devices shards the window dimension, every
-per-step (W, M) @ (M, M) matmul runs chip-local, and the only collective is
-the ``psum`` XLA inserts for the final log-likelihood sum (or the gather of
-posterior/Viterbi outputs).  This subsumes the reference's joblib
+per-step (W, M) @ (M, M) matmul runs device-local, and the only collective
+is the ``psum`` XLA inserts for the final log-likelihood sum (or the gather
+of posterior/Viterbi outputs).  This subsumes the reference's joblib
 process-pool over blocks (optimizer.py:56-62) and is the multi-host story:
-with ``jax.distributed`` initialized, the same code spans hosts over
-ICI/DCN.
+with ``jax.distributed`` initialized, the same code spans hosts.
 """
 
 from __future__ import annotations
@@ -44,9 +43,9 @@ def _loglik(a, bfull, pi, tokens):
 
 def sharded_loglik_fn(mesh: Mesh):
     """Jitted (a, bfull, pi, tokens) -> total loglik, explicitly shard_mapped
-    over the 'data' axis.  Each device decodes its local window shard with
-    the fastest available kernel (the fused Pallas forward on TPU,
-    hmm.pallas_fwd) and the scalar sums merge with one psum over ICI."""
+    over the 'data' axis.  Each device decodes its local window shard
+    through decoders.forward_loglik_fast (the Pallas-Triton kernel on a
+    CUDA device) and the scalar sums merge with one psum."""
 
     @jax.jit
     @functools.partial(
@@ -79,7 +78,7 @@ def sharded_posterior(a, bfull, pi, tokens, mesh: Mesh):
         out_specs=P(None, "data", None), check_vma=False,
     )
     def f(a, bfull, pi, tokens):
-        return decoders.posterior_fast(a, bfull, pi, tokens)
+        return decoders.posterior(a, bfull, pi, tokens)
 
     return f(a, bfull, pi, shard_batch(tokens, mesh))
 
@@ -92,6 +91,6 @@ def sharded_viterbi(a, bfull, pi, tokens, mesh: Mesh):
         out_specs=P("data", None), check_vma=False,
     )
     def f(a, bfull, pi, tokens):
-        return decoders.viterbi_fast(a, bfull, pi, tokens)
+        return decoders.viterbi(a, bfull, pi, tokens)
 
     return f(a, bfull, pi, shard_batch(tokens, mesh))

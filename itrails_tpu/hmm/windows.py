@@ -18,9 +18,9 @@ __all__ = ["pack_windows", "plan_buckets", "unpack_rows"]
 
 # Blocks longer than this are routed through the sequence-parallel
 # transfer-operator path (hmm/longseq*.py) instead of padding a window
-# batch to their length.  262144 columns is the break-even measured on
-# v5e: below it the padded batch kernel wins, above it the operator
-# path's M-fold FLOP overhead is cheaper than the padding it avoids.
+# batch to their length: below it the padded batch decode wins, above it
+# the operator path's M-fold FLOP overhead is cheaper than the padding it
+# avoids.  The break-even on the H100 is not measured yet (ROADMAP).
 LONG_BLOCK_THRESHOLD = 262_144
 
 

@@ -79,9 +79,7 @@ def build_model_introgression_fn(n_int_AB: int, n_int_ABC: int,
         jit_fn = jax.jit(fn)  # one jit instance: trace once, reuse forever
 
         def wrapped(*args, **kwargs):
-            from itrails_tpu.core.linalg import native_solves
-
-            with jax.default_device(dev), native_solves(device == "cpu"):
+            with jax.default_device(dev):
                 return jit_fn(*args, **kwargs)
 
         return wrapped

@@ -41,8 +41,7 @@ def update_n_cpu(user_requested) -> int:
 
 def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None):
-    """Initialize multi-host JAX (ICI/DCN collectives) when running on a pod
-    slice.  Arguments default to the standard JAX environment discovery; a
+    """Initialize multi-host JAX when running across several hosts.  Arguments default to the standard JAX environment discovery; a
     no-op on a single host with no coordinator configured."""
     import jax
 

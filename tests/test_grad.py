@@ -127,8 +127,8 @@ def test_optimizer_use_grad_smoke(tmp_path):
 
 @pytest.mark.slow
 def test_int_gradient_fd_parity_at_stall_point():
-    """The round-3 introgression L-BFGS-B+grad run stalled at its start
-    point (GRADEVAL.json).  This pins that the exact gradient there is
+    """An unscaled introgression L-BFGS-B+grad run once stalled at its
+    start point.  This pins that the exact gradient there is
     CORRECT — central finite differences agree to ~1e-7 — so the stall was
     a line-search geometry problem (unscaled variables), not a wrong or
     discontinuous gradient at the t_1/t_m case boundary."""

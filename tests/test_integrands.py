@@ -70,7 +70,7 @@ def test_single_integrand_near_k_equals_mu():
     (get_emission_prob_mat.py:47-92, gamma/(mu-k) + gamma/(k-mu)); the
     restructured divided-difference form must stay accurate through it
     (measured <= 2e-16; the naive form is inf at the point and ~4e-6 at
-    |k/mu - 1| = 1e-10 — tools/exp_integrand_singular.py)."""
+    |k/mu - 1| = 1e-10)."""
     from mpmath import mp
 
     xp = _MPX()

@@ -85,8 +85,8 @@ def test_lru_prune(cache_env, monkeypatch):
 
 
 def test_artifact_hit_arrays_are_uncommitted(cache_env):
-    """Round-5 regression (caught by tools/smoke_cli.py on TPU): the
-    artifact-hit path must return UNCOMMITTED arrays like the jit build
+    """Regression (caught by an end-to-end CLI smoke on an accelerator):
+    the artifact-hit path must return UNCOMMITTED arrays like the jit build
     path does — an explicit device_put commits them, and a later sharded
     decode mixing them with accelerator-placed tokens raises
     'incompatible devices'.  Proxy check on the virtual mesh: a hit-path

@@ -95,23 +95,21 @@ def test_two_process_distributed_matches_single(tmp_path):
 
 
 def test_weak_scaling_dryrun(tmp_path):
-    """tools/weak_scaling.py --dryrun: the pod-slice arg plumbing runs
-    green on an 8-virtual-device mesh and emits the runbook artifact
-    (VERDICT r4 item 8)."""
-    import shutil
+    """tools/weak_scaling.py --dryrun: the multi-device arg plumbing runs
+    green on an 8-virtual-device mesh and writes the runbook artifact where
+    --runbook says (never into the checkout)."""
     import subprocess
     import sys
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    # run from a scratch cwd; the artifact lands at the repo root
+    art = str(tmp_path / "runbook.json")
     out = subprocess.run(
         [sys.executable, os.path.join(repo, "tools", "weak_scaling.py"),
-         "--dryrun"],
+         "--dryrun", "--runbook", art],
         capture_output=True, text=True, timeout=600, cwd=tmp_path,
     )
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
     assert "DRYRUN OK" in out.stdout
-    art = os.path.join(repo, "WEAKSCALING_RUNBOOK.json")
     assert os.path.exists(art)
     res = json.load(open(art))["dryrun_result"]
     assert res["n_devices"] == 8 and res["loglik"] < 0

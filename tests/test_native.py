@@ -55,7 +55,7 @@ def test_native_throughput_exceeds_python(lib_ok, tmp_path):
     nat = list(native.maf_tokens_native(path, SPECIES))
     t_nat = time.time() - t0
     t0 = time.time()
-    py = maf_tokens(path, SPECIES)
+    py = maf_tokens(path, SPECIES, prefer_native=False)
     t_py = time.time() - t0
     for a, b in zip(nat, py):
         np.testing.assert_array_equal(a, b)

@@ -2,15 +2,17 @@
 
 Runs the production data-parallel log-likelihood (hmm.sharding) with FIXED
 per-device work over meshes of 1/2/4/8 devices and reports per-device
-throughput + weak-scaling efficiency as JSON (written to WEAKSCALING.json
-at the repo root, next to the BENCH artifacts).
+throughput + weak-scaling efficiency as JSON (``--out``, default
+WEAKSCALING.json in the current directory).
 
-On this image only one physical TPU chip is reachable, so the default mode
-forces an N-device *virtual CPU* mesh per measurement (fresh subprocess per
-N — XLA device count is fixed at backend init).  On a real pod slice run
-with ``--backend tpu`` and it measures the physical mesh sizes available.
-The collective pattern is identical either way: one psum of the per-shard
-scalar (see hmm/sharding.py).
+With ``--backend cpu`` (the default) each measurement runs on N CPU devices
+(fresh subprocess per N — XLA's device count is fixed at backend init).
+With ``--backend gpu`` each measurement is one worker process driving the
+first N GPUs of the host; the parent never opens a card, so every card has
+one process at a time.  The collective pattern is identical either way: one
+psum of the per-shard scalar (see hmm/sharding.py).
+
+    python tools/weak_scaling.py --backend gpu --sizes 1,2,4
 """
 
 import argparse
@@ -46,7 +48,7 @@ def measure_proc(pid: int, nproc: int, port: str, w_per_dev: int,
     over ``jax.distributed`` loopback (Gloo).  Unlike the virtual-device
     mode, per-device compute here runs on a genuinely private core and the
     final psum crosses a real inter-process collective — the same pattern
-    as N TPU hosts over DCN."""
+    as N hosts joined by a network."""
     cores = sorted(os.sched_getaffinity(0))
     os.sched_setaffinity(0, {cores[pid % len(cores)]})
     os.environ["JAX_PLATFORMS"] = "cpu"
@@ -161,12 +163,13 @@ def measure(n_dev: int, w_per_dev: int, t_len: int, m: int):
     }
 
 
-def dryrun():
+def dryrun(runbook_path):
     """Validate the complete multi-device plumbing end to end — worker
     subprocess spawn, env/flag propagation, mesh construction, sharded
     decode, RESULT parsing — on an 8-virtual-device CPU mesh with tiny
-    shapes, then emit the pod-slice runbook artifact.  Green here means
-    the only untested step on a real slice is the hardware itself."""
+    shapes, then write the runbook artifact to ``runbook_path``.  Green
+    here means the only untested step on a GPU host is the hardware
+    itself."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
@@ -193,32 +196,21 @@ def dryrun():
                      "plumbing, mesh + sharded decode + RESULT parsing all "
                      "green (this artifact is written only on success)",
         "dryrun_result": res,
-        "pod_slice_commands": {
-            "single_host_slice (e.g. v5e-8)": (
-                "python tools/weak_scaling.py --backend tpu "
-                "--sizes 1,2,4,8 --w-per-dev 512 --t-len 8192"
+        "gpu_commands": {
+            "one host, N cards": (
+                "python tools/weak_scaling.py --backend gpu "
+                "--sizes 1,2,4 --w-per-dev 512 --t-len 8192"
             ),
-            "multi_host (one command per host over DCN)": (
-                "JAX_COORDINATOR=<host0>:12733 python tools/"
-                "multihost_worker.py --nprocs <H> --pid <this host index> "
-                "-- python tools/weak_scaling.py --backend tpu"
-            ),
-            "env": {
-                "PYTHONPATH": "<repo root> (plus the TPU plugin site dir "
-                              "if the runtime needs one)",
-            },
+            "env": {"PYTHONPATH": "<repo root>"},
         },
         "expected": {
-            "per_device_mcols_per_s": "~700 at M=27 (BENCH value/1e6 on "
-                                      "one v5e chip)",
+            "per_device_mcols_per_s": "not measured",
             "weak_scaling_efficiency": ">= 0.95 — the decode communicates "
                                        "ONE scalar psum per eval "
-                                       "(hmm/sharding.py); measured 0.987 "
-                                       "at n=2 process-isolated loopback "
-                                       "(WEAKSCALING.json)",
+                                       "(hmm/sharding.py)",
         },
     }
-    path = os.path.join(REPO, "WEAKSCALING_RUNBOOK.json")
+    path = runbook_path
     with open(path, "w") as f:
         json.dump(runbook, f, indent=1)
     print(f"DRYRUN OK: 8 virtual devices, loglik {res['loglik']:.1f}; "
@@ -236,29 +228,29 @@ def main():
                    help="procs: N pinned single-device processes over "
                         "jax.distributed loopback (true isolation; default); "
                         "virtual: N virtual devices in one process")
-    p.add_argument("--backend", choices=["cpu", "tpu"], default="cpu")
+    p.add_argument("--backend", choices=["cpu", "gpu"], default="cpu")
     p.add_argument("--w-per-dev", type=int, default=64)
     p.add_argument("--t-len", type=int, default=4096)
     p.add_argument("--m", type=int, default=27)
     p.add_argument("--sizes", type=str, default=None,
                    help="mesh sizes; cpu default: powers of 2 up to the "
-                        "core count (isolable), tpu default: 1,2,4,8")
+                        "core count (isolable), gpu default: 1,2,4")
     p.add_argument("--pin", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="pin each cpu worker to n_dev disjoint cores "
                         "(one core per virtual device)")
-    p.add_argument("--out", type=str,
-                   default=os.path.join(REPO, "WEAKSCALING.json"))
+    p.add_argument("--out", type=str, default="WEAKSCALING.json")
+    p.add_argument("--runbook", type=str, default="WEAKSCALING_RUNBOOK.json",
+                   help="where --dryrun writes its runbook artifact")
     p.add_argument("--dryrun", action="store_true",
-                   help="validate the full pod-slice arg plumbing on an "
+                   help="validate the full multi-device arg plumbing on an "
                         "8-virtual-device CPU mesh (tiny shapes, no "
-                        "pinning) and emit WEAKSCALING_RUNBOOK.json — the "
-                        "ready-to-run commands, env, and expected numbers "
-                        "for a real TPU slice (VERDICT r4 item 8)")
+                        "pinning) and write the runbook artifact — the "
+                        "ready-to-run commands and env for a GPU host")
     args = p.parse_args()
 
     if args.dryrun:
-        return dryrun()
+        return dryrun(args.runbook)
 
     if args.proc_worker is not None:
         pid, nproc, port = args.proc_worker.split(",")
@@ -334,12 +326,11 @@ def main():
             ),
             "mode": "process-isolated: each of N processes owns ONE pinned "
                     "core and ONE cpu device; the psum crosses "
-                    "jax.distributed (Gloo loopback) exactly as it would "
-                    "cross DCN between TPU hosts",
+                    "jax.distributed (Gloo loopback) as it would cross a "
+                    "network between hosts",
             "caveat": f"this host exposes {n_cores} cores, so mesh sizes "
                       f"beyond {n_cores} are not isolable here; run "
-                      "--backend tpu on a real slice for hardware numbers "
-                      "(see README runbook)",
+                      "--backend gpu on a GPU host for hardware numbers",
             "backend": "cpu",
             "m_states": args.m,
             "w_per_dev": args.w_per_dev,
@@ -357,7 +348,7 @@ def main():
         n_cores = len(os.sched_getaffinity(0))
         sizes = [n for n in (1, 2, 4, 8) if n <= n_cores]
     else:
-        sizes = [1, 2, 4, 8]
+        sizes = [1, 2, 4]
     rows = []
     for n in sizes:
         env = dict(os.environ)
@@ -405,8 +396,8 @@ def main():
             "backend=cpu: each worker is affinity-pinned to n_dev disjoint "
             "cores (one core per virtual device) so per-device compute is "
             "constant across mesh sizes; sizes beyond the physical core "
-            "count are skipped as not isolable.  Run --backend tpu on a "
-            "real slice for hardware numbers (see README runbook)."
+            "count are skipped as not isolable.  Run --backend gpu on a "
+            "GPU host for hardware numbers."
             if args.backend == "cpu" and args.pin else
             "backend=cpu without pinning: N virtual devices share every "
             "core, so per-device throughput decays ~1/N by construction."
